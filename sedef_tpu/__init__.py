@@ -1,34 +1,6 @@
-"""sedef_tpu — TPU-native segmental-duplication detection framework.
+"""sedef_tpu — segmental-duplication detection engine.
 
-Re-implementation of the capabilities of vpc-ccg/sedef (ECCB 2018) with a
-TPU-first architecture: JAX/XLA + Pallas kernels for the compute path and
-a C++ host runtime for the scalar cores.
+Re-implementation of the capabilities of vpc-ccg/sedef (ECCB 2018) in
+JAX: batched device kernels for the gap DPs (a CUDA kernel on NVIDIA GPUs)
+and a C++ host runtime for the scalar cores.
 """
-
-import os
-
-
-def _enable_persistent_compile_cache() -> None:
-    """Persist XLA executables across processes.
-
-    The pipeline fans out over many OS processes (like the reference's GNU
-    Parallel stages); without a persistent cache every process re-pays the
-    20-40 s TPU compile per (batch, size-class) shape.  Opt out with
-    SEDEF_NO_COMPILE_CACHE=1.
-    """
-    if os.environ.get("SEDEF_NO_COMPILE_CACHE"):
-        return
-    try:
-        import jax
-        path = os.environ.get(
-            "JAX_COMPILATION_CACHE_DIR",
-            os.path.join(os.path.expanduser("~"), ".cache",
-                         "sedef_tpu_xla"))
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
-
-
-_enable_persistent_compile_cache()

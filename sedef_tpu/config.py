@@ -1,4 +1,4 @@
-"""Global configuration for the TPU-native segmental-duplication engine.
+"""Global configuration for the segmental-duplication engine.
 
 Mirrors the tunables of the reference implementation (``src/globals.h:24-110``
 and ``src/globals.cc:16-39``) so that outputs are comparable, but exposes them

@@ -21,12 +21,12 @@ def _native_region_gate(query: str, ref: str) -> bool:
     """Route this region through the native full-region align core?
 
     The native path wins whenever the region's gap DPs would run on the
-    host anyway (CPU backend, tripped device breaker, or a dispatch
-    latency too high for bulk device batching — DEVICE_BATCH_MIN is the
-    devcal-scaled knob, devcal.py).  With a cheap-dispatch device the
-    Python path stays so CoalescingAligner can bulk-batch gap DPs on the
-    chip; giant regions (>60 Kbp, the chunked / tiled-kernel regime)
-    always keep the Python path.  SEDEF_NATIVE_REGION=0/1 overrides."""
+    host anyway (no accelerator, or a dispatch latency too high for bulk
+    device batching — DEVICE_BATCH_MIN is the devcal-scaled knob,
+    devcal.py).  With a cheap-dispatch device the Python path stays so
+    CoalescingAligner can bulk-batch gap DPs on the device; giant regions
+    (>60 Kbp, the chunked regime) always keep the Python path.
+    SEDEF_NATIVE_REGION=0/1 overrides."""
     env = os.environ.get("SEDEF_NATIVE_REGION")
     if env is not None:
         return env != "0"
@@ -38,12 +38,9 @@ def _native_region_gate(query: str, ref: str) -> bool:
         return False
     if max(len(query), len(ref)) > 60000:
         return False
-    import jax
+    from ..device import accelerator
 
-    if jax.default_backend() == "cpu":
-        return True
-    from ..devhealth import tripped
-    if tripped():
+    if accelerator() is None:
         return True
     return WavefrontAligner.DEVICE_BATCH_MIN > 16
 

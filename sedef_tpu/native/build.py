@@ -1,4 +1,8 @@
-"""Build libsedef_native.so:  python -m sedef_tpu.native.build"""
+"""Build the native libraries:
+
+    python -m sedef_tpu.native.build           # libsedef_native.so (g++)
+    python -m sedef_tpu.native.build --cuda    # CUDA gap-DP kernel (nvcc)
+"""
 
 from __future__ import annotations
 
@@ -32,6 +36,10 @@ def build(verbose: bool = True, sanitize: bool = False) -> pathlib.Path:
 
 
 if __name__ == "__main__":
-    out = build(sanitize="--sanitize" in sys.argv)
+    if "--cuda" in sys.argv:
+        from .cuda import build as build_cuda
+        out = build_cuda(verbose=True)
+    else:
+        out = build(sanitize="--sanitize" in sys.argv)
     print("built", out)
     sys.exit(0)

@@ -1,7 +1,7 @@
 """ctypes loader for the C++ native runtime (libsedef_native.so).
 
 The native library accelerates sequential host-side hot loops that do not
-map to the TPU (winnowing scan, stage-1 search, chaining DP, wavefront
+map to the device (winnowing scan, stage-1 search, chaining DP, wavefront
 traceback).  Every entry point has a pure NumPy/Python fallback; ``has``
 reports availability.  Build with:  python -m sedef_tpu.native.build
 """

@@ -1,5 +1,5 @@
 // SPDX-License-Identifier: MIT
-// Native host runtime for the TPU-native SD engine.
+// Native host runtime for the SD engine.
 //
 // C++ implementations of the sequential host-side hot paths, mirroring the
 // (oracle-validated) Python modules exactly:
@@ -11,7 +11,7 @@
 //   * sedef_chain      — anchor chaining DP of ops/chain.py
 //   * sedef_backtrack  — wavefront CIGAR traceback of ops/wavefront.py
 //
-// The compute kernels (wavefront DP, batched scoring) stay on the TPU; this
+// The compute kernels (wavefront DP, batched scoring) stay on the device; this
 // library replaces only the pointer-chasing host loops where Python is the
 // bottleneck.  Build: python -m sedef_tpu.native.build
 
@@ -623,7 +623,7 @@ static OutHit extend_hit(Sketch &w, const IndexView &Q, const IndexView &R,
 }
 
 // dev: optional device roll verdict [best_jaccard, best_steps] from the
-// batched TPU roll engine (ops/roll_engine.py) — the interval's op stream
+// batched device roll engine (ops/roll_engine.py) — the interval's op stream
 // is identical, so the scan is skipped and only the winning prefix is
 // replayed.  null -> scalar roll here.
 static void search_interval(int32_t query_start, int64_t qws, int64_t qwe,
@@ -1941,10 +1941,10 @@ int64_t sedef_align_batch(const uint8_t *qbuf, const int64_t *qoff,
 // Full-region align path (stage 2b): anchors -> chaining -> guided assembly
 // -> O(n^2) chain refinement, entirely in native code.
 //
-// This is the dense-SD-regime fix (docs/HG19_DENSE.md): per ~10 Kbp region
-// the Python glue around the (already native) anchor scan / chain DP / gap
-// DPs — Alignment assembly, trims, merges, per-region Hit round trips —
-// cost ~2.5 ms of GIL-bound interpreter time, which dominates exactly when
+// This is the dense-SD-regime fix: per ~10 Kbp region the Python glue
+// around the (already native) anchor scan / chain DP / gap DPs — Alignment
+// assembly, trims, merges, per-region Hit round trips — costs GIL-bound
+// interpreter time, which dominates exactly when
 // regions are small and below the device-dispatch breakeven.  The semantics
 // here are the pinned byte-parity semantics of models/aligner.py and
 // ops/cigar.py (reference: src/chain.cc:203-268, src/refine.cc:23-193,

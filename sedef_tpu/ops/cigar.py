@@ -93,18 +93,12 @@ def _batch_gap_cigars(qstr: str, rstr: str,
 
 
 def default_aligner() -> WavefrontAligner:
-    """Single-device Pallas aligner, or — with more than one local TPU —
-    the mesh-sharded MeshAligner (shard_map over the batch axis), so the
-    align stage scales with the local device count automatically."""
+    """The single-device aligner, also on a host with several GPUs: the
+    mesh-sharded ``parallel.mesh.MeshAligner`` is byte-identical but
+    slower end to end on four H100s (PERF.md), so callers opt into it."""
     global _default_aligner
     if _default_aligner is None:
-        import jax
-        if (jax.default_backend() not in ("cpu",)
-                and len(jax.local_devices()) > 1):  # pragma: no cover
-            from ..parallel.mesh import MeshAligner
-            _default_aligner = MeshAligner()
-        else:
-            _default_aligner = WavefrontAligner()
+        _default_aligner = WavefrontAligner()
     return _default_aligner
 
 
@@ -218,7 +212,7 @@ class Alignment:
                           aligner: WavefrontAligner | None = None
                           ) -> list["Alignment"]:
         """from_anchors for many chains at once: every chain's inter-anchor
-        gap DP goes into ONE batched aligner call (the TPU-side win for
+        gap DP goes into ONE batched aligner call (the device-side win for
         stage 2b)."""
         if aligner is None:
             aligner = default_aligner()

@@ -1,6 +1,6 @@
 """Batched MinHash-sketch Jaccard scoring on device.
 
-The TPU-side formulation of the sliding-Jaccard statistic (SURVEY §7.1):
+The device formulation of the sliding-Jaccard statistic (SURVEY §7.1):
 instead of rolling an incremental ordered map one position at a time
 (sliding.cc), score MANY candidate window compositions at once as a
 union-rank reduction over sorted key arrays.
@@ -37,9 +37,7 @@ def merge_rank_intersection(q_keys: jax.Array, r_keys: jax.Array,
     binary searches.
 
     A vmapped ``searchsorted`` membership probe lowers to per-element
-    gather chains on TPU and measures ~36x slower than one bitonic sort
-    of the concatenated rows at production batch shapes (131072 rows:
-    2.28 s vs 0.064 s on v5e) — so instead each row's query and ref keys
+    gather chains, so instead each row's query and ref keys
     are tagged into one array (``key*2 + side``; query side sorts first
     for equal keys), sorted once, and scanned with vector compares and a
     cumulative sum:

@@ -2,7 +2,7 @@
 
 The reference scales by fanning ~n(n+1) independent chromosome-pair
 processes over cores via GNU Parallel with the filesystem as the collective
-(SURVEY §2.2 P1/C1; ``sedef.sh:133-140``).  The TPU-native equivalent:
+(SURVEY §2.2 P1/C1; ``sedef.sh:133-140``).  The device equivalent:
 
 * a 2-D ``jax.sharding.Mesh`` with axes ("pairs", "data") — chromosome-pair
   jobs shard over "pairs", each job's batched windows/DP problems shard
@@ -10,8 +10,8 @@ processes over cores via GNU Parallel with the filesystem as the collective
 * the per-step compute (q-gram filter scoring + wavefront DP) runs under
   ``shard_map`` with XLA collectives: ``psum`` for the global funnel
   counters (the reference's TOTAL/JACCARD/... tallies, search.cc:29-31)
-  and an ``all_gather`` for per-shard hit counts, riding ICI;
-* hosts exchange candidate-hit tensors only at stage barriers (DCN), which
+  and an ``all_gather`` for per-shard hit counts;
+* hosts exchange candidate-hit tensors only at stage barriers, which
   single-host deployments never hit.
 """
 
@@ -24,9 +24,10 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..device import accelerator
 from ..ops.filter import QG, QSZ
-from ..ops.wavefront import (_padded_rows, wavefront_device,
-                             wavefront_scan_batch)
+from ..ops.wavefront import (WavefrontAligner, cigar_from_packed_ops,
+                             class_parts, gap_dp_packed, pack_class_batch)
 
 
 def make_mesh(n_devices: int | None = None) -> Mesh:
@@ -69,214 +70,128 @@ def qgram_scores(codes_a: jax.Array, codes_b: jax.Array) -> jax.Array:
     return jnp.minimum(hist(ga), hist(gb)).sum(axis=-1)
 
 
-def build_multichip_step(mesh: Mesh, S_q: int, S_t: int,
-                         use_pallas: bool | None = None):
-    """The full sharded compute step: q-gram gate -> wavefront DP ->
-    collective funnel reduction.  Inputs are globally shaped
-    (P_pairs, D_data, B, ...) and sharded over the first two axes."""
-    on_tpu = jax.default_backend() not in ("cpu",)
-    if use_pallas is None:
-        use_pallas = on_tpu
-    n_rows = S_q + S_t - 1
+def op_counts(ops: jax.Array, op: int) -> jax.Array:
+    """Per-problem count of ``op`` codes in a packed op stream (B, n)."""
+    o = ops.astype(jnp.int32)
+    return sum((((o >> (2 * k)) & 3) == op).sum(axis=-1)
+               for k in range(4)).astype(jnp.int32)
 
-    def local_step(qcodes, tgt, win_a, win_b, minqg):
-        # qcodes: (1, 1, B, n_rows) local shard; squeeze mesh dims
-        qcodes = qcodes.reshape(qcodes.shape[2:])
-        tgt = tgt.reshape(tgt.shape[2:])
-        win_a = win_a.reshape(win_a.shape[2:])
-        win_b = win_b.reshape(win_b.shape[2:])
 
+def build_multichip_step(mesh: Mesh, S_q: int, S_t: int):
+    """The full sharded compute step: q-gram gate -> gap DP (the device
+    route, ``gap_dp_packed``) -> collective funnel reduction.  Inputs are
+    globally shaped (P_pairs, D_data, B, ...) and sharded over the first
+    two axes."""
+    cuda = accelerator() is not None
+
+    def local_step(qseq, tgt, ql, tl, win_a, win_b, minqg):
+        # (1, 1, B, ...) local shard; squeeze the mesh dims
+        qseq, tgt, ql, tl, win_a, win_b = (
+            a.reshape(a.shape[2:]) for a in (qseq, tgt, ql, tl, win_a,
+                                             win_b))
         qg = qgram_scores(win_a, win_b)                  # (B,)
         passed = qg >= minqg.reshape(())
+        ops = gap_dp_packed(qseq, tgt, ql, tl, S_q, S_t, cuda=cuda)
+        # per-problem proxy statistic: matched columns of the alignment
+        mcols = op_counts(ops, 0)
 
-        if use_pallas:
-            # interpret mode on CPU meshes: the production Pallas path
-            # stays CI-covered without TPU hardware
-            p = wavefront_device(qcodes, tgt, S_q, S_t,
-                                 interpret=not on_tpu)
-        else:
-            p = wavefront_scan_batch(qcodes, tgt, S_q, S_t)
-        p = p[:, :n_rows]
-        # per-problem proxy statistic: matched-diagonal cells
-        mcells = ((p & 7) == 0).sum(axis=(1, 2)).astype(jnp.int32)
-
-        # global funnel counters over the whole mesh (ICI psum)
+        # global funnel counters over the whole mesh
         total = jax.lax.psum(jnp.int32(qg.shape[0]), ("pairs", "data"))
         total_passed = jax.lax.psum(passed.sum().astype(jnp.int32),
                                     ("pairs", "data"))
         # per-shard hit counts gathered along the data axis
         counts = jax.lax.all_gather(passed.sum().astype(jnp.int32),
                                     "data")
-        return (p[None, None], mcells[None, None], qg[None, None],
+        return (ops[None, None], mcols[None, None], qg[None, None],
                 total, total_passed, counts[None])
 
-    from jax.experimental.shard_map import shard_map
-    step = shard_map(
+    shard = P("pairs", "data")
+    step = jax.shard_map(
         local_step, mesh=mesh,
-        in_specs=(P("pairs", "data"), P("pairs", "data"),
-                  P("pairs", "data"), P("pairs", "data"), P()),
-        out_specs=(P("pairs", "data"), P("pairs", "data"),
-                   P("pairs", "data"), P(), P(), P("pairs", None)),
-        check_rep=False)
+        in_specs=(shard,) * 6 + (P(),),
+        out_specs=(shard, shard, shard, P(), P(), P("pairs", None)),
+        check_vma=False)
     return jax.jit(step)
 
 
-class MeshAligner:
+class MeshAligner(WavefrontAligner):
     """Align-stage aligner that shards each device batch across ALL local
-    devices of a 1-D ("data") mesh under ``shard_map`` — the production
-    multi-chip replacement for the reference's per-process fan-out
+    devices of a 1-D ("data") mesh under ``shard_map`` — the multi-device
+    replacement for the reference's per-process fan-out
     (sedef.sh:187-190): problems are independent, so the batch axis shards
     with no collectives and wall time scales with the device count.
 
-    On TPU meshes the per-shard fill+traceback is the Pallas path
-    (wavefront_cigar_device); on CPU meshes (tests, dryrun) the per-shard
-    fill is the scan variant with host traceback.  Results are identical
-    to the single-device WavefrontAligner: batch composition does not
-    affect per-problem DP results.
+    Routing (host vs device, size classes) is the single-device
+    ``WavefrontAligner``'s; each shard runs the device route
+    (``gap_dp_packed``: the CUDA kernel on GPU meshes, plain JAX on CPU
+    meshes).  Results are identical to the single-device aligner: batch
+    composition does not affect per-problem DP results.
     """
 
     def __init__(self, mesh: Mesh | None = None, cfg=None,
-                 use_tpu: bool | None = None,
-                 use_pallas: bool | None = None):
+                 use_device: bool | None = None):
         from ..config import DEFAULT
-        from ..ops.wavefront import WavefrontAligner
+        super().__init__(cfg or DEFAULT, use_device=use_device)
         if mesh is None:
             devs = jax.devices()
             mesh = jax.make_mesh((len(devs),), ("data",), devices=devs)
         self.mesh = mesh
-        self.base = WavefrontAligner(cfg or DEFAULT, use_tpu=use_tpu)
-        self.cfg = self.base.cfg
-        self.ndev = int(np.prod(mesh.devices.shape))
-        # None: Pallas fill+traceback on TPU meshes, scan fill on CPU.
-        # True on a CPU mesh runs the Pallas path in interpret mode
-        # (CI coverage of the production multi-chip kernels).
-        self.use_pallas = use_pallas
+        self.ndev = int(mesh.devices.size)
+        self._fns: dict[tuple[int, int], object] = {}
 
-    def align_strings(self, a: str, b: str):
-        max_len = self.cfg.align.max_ksw_seq_len
-        from ..ops.dna import encode_align
-        qc_full = encode_align(a)
-        tc_full = encode_align(b)
-        min_len = min(len(a), len(b))
-        chunks = [(qc_full[sp:sp + max_len], tc_full[sp:sp + max_len])
-                  for sp in range(0, min_len, max_len)]
-        parts = self.align_batch(chunks) if chunks else []
-        cigar = []
-        for part in parts:
-            for op, ln in part:
-                if cigar and cigar[-1][0] == op:
-                    cigar[-1] = (op, cigar[-1][1] + ln)
-                else:
-                    cigar.append((op, ln))
-        return cigar
+    def _sharded(self, S_q: int, S_t: int):
+        key = (S_q, S_t)
+        if key not in self._fns:
+            fn = functools.partial(
+                gap_dp_packed, S_q=S_q, S_t=S_t, match=self.match,
+                mis=self.mis, gapo=self.gapo, gape=self.gape,
+                cuda=self._cuda)
+            self._fns[key] = jax.jit(jax.shard_map(
+                fn, mesh=self.mesh, in_specs=(P("data"),) * 4,
+                out_specs=P("data"), check_vma=False))
+        return self._fns[key]
 
-    def align_codes(self, query, target):
-        return self.align_batch([(query, target)])[0]
-
-    def align_batch(self, pairs):
-        """Size-class groups shard over the mesh; small stragglers and
-        giant tiled problems take the base (single-device) path."""
-        from ..ops.wavefront import (_pad_to_class, backtrack_np,
-                                     cigar_from_ops, wavefront_scan_batch,
-                                     _degenerate_cigar)
+    def _align_device(self, pairs, idxs, results) -> None:
         if self.ndev <= 1:
-            return self.base.align_batch(pairs)
-        results = [None] * len(pairs)
-        groups: dict[tuple[int, int], list[int]] = {}
-        small: list[int] = []
-        for idx, (qc, tc) in enumerate(pairs):
-            if len(qc) == 0 or len(tc) == 0:
-                results[idx] = _degenerate_cigar(len(qc), len(tc))
-                continue
-            S_q = _pad_to_class(len(qc))
-            S_t = _pad_to_class(len(tc))
-            if S_t > self.base.GIANT_S_T or len(pairs) < 2 * self.ndev:
-                small.append(idx)
-                continue
-            groups.setdefault((S_q, S_t), []).append(idx)
-        if small:
-            for idx, cig in zip(small, self.base.align_batch(
-                    [pairs[i] for i in small])):
-                results[idx] = cig
-        from functools import partial
-
-        from jax.experimental.shard_map import shard_map
-        on_tpu = jax.default_backend() not in ("cpu",)
-        use_pallas = on_tpu if self.use_pallas is None else self.use_pallas
+            return super()._align_device(pairs, idxs, results)
         shard = NamedSharding(self.mesh, P("data"))
-        from ..ops.dna import WILDCARD
-        for (S_q, S_t), idxs in groups.items():
-            if use_pallas:
-                from ..ops.wavefront import (_lane_groups, _sublane_pack,
-                                             cigar_from_packed_ops,
-                                             wavefront_cigar_device)
-                G = _lane_groups(S_t)
-                SUB = _sublane_pack(S_t)
-                unit = self.ndev * SUB * G
-                B = ((len(idxs) + unit - 1) // unit) * unit
-                qseq = np.full((B, S_q), WILDCARD, np.int8)
-                tgts = np.full((B, S_t), WILDCARD, np.int8)
-                ql = np.ones(B, np.int32)
-                tl = np.ones(B, np.int32)
-                for bi, idx in enumerate(idxs):
+        for (S_q, S_t), cls_idx in self.device_groups(pairs, idxs).items():
+            for part in class_parts(cls_idx, S_q, S_t, self._cuda,
+                                    self.ndev):
+                # problem k -> row (k % ndev) * per + k // ndev: every
+                # shard gets an equal share of the real problems
+                per = 1 << max(3, (-(-len(part) // self.ndev) - 1)
+                               .bit_length())
+                order: list[int | None] = [None] * (per * self.ndev)
+                rows = [(k % self.ndev) * per + k // self.ndev
+                        for k in range(len(part))]
+                for k, row in enumerate(rows):
+                    order[row] = part[k]
+                arrs = pack_class_batch(pairs, order, S_q, S_t, len(order))
+                ops = np.asarray(self._sharded(S_q, S_t)(
+                    *(jax.device_put(a, shard) for a in arrs)))
+                for row, idx in zip(rows, part):
                     qc, tc = pairs[idx]
-                    qseq[bi, :len(qc)] = qc
-                    tgts[bi, :len(tc)] = tc
-                    ql[bi] = len(qc)
-                    tl[bi] = len(tc)
-                fn = shard_map(
-                    partial(wavefront_cigar_device, S_q=S_q, S_t=S_t,
-                            match=self.base.match, mis=self.base.mis,
-                            gapo=self.base.gapo, gape=self.base.gape,
-                            G=G, SUB=SUB, interpret=not on_tpu),
-                    mesh=self.mesh,
-                    in_specs=(P("data"), P("data"), P("data"), P("data")),
-                    out_specs=P("data"), check_rep=False)
-                ops = np.asarray(jax.jit(fn)(
-                    jax.device_put(qseq, shard), jax.device_put(tgts, shard),
-                    jax.device_put(ql, shard), jax.device_put(tl, shard)))
-                for bi, idx in enumerate(idxs):
-                    qc, tc = pairs[idx]
-                    results[idx] = cigar_from_packed_ops(ops[bi], len(qc),
+                    results[idx] = cigar_from_packed_ops(ops[row], len(qc),
                                                          len(tc))
-                continue
-            from ..ops.wavefront import _padded_rows
-            B = ((len(idxs) + self.ndev - 1) // self.ndev) * self.ndev
-            n_rows = _padded_rows(S_q, S_t)
-            qcodes = np.full((B, n_rows), WILDCARD, np.int32)
-            tgts = np.full((B, S_t), WILDCARD, np.int8)
-            for bi, idx in enumerate(idxs):
-                qc, tc = pairs[idx]
-                qcodes[bi, :len(qc)] = qc
-                tgts[bi, :len(tc)] = tc
-            fill = shard_map(
-                partial(wavefront_scan_batch, S_q=S_q, S_t=S_t,
-                        match=self.base.match, mis=self.base.mis,
-                        gapo=self.base.gapo, gape=self.base.gape),
-                mesh=self.mesh, in_specs=(P("data"), P("data")),
-                out_specs=P("data"), check_rep=False)
-            p = np.asarray(jax.jit(fill)(
-                jax.device_put(qcodes, shard), jax.device_put(tgts, shard)))
-            for bi, idx in enumerate(idxs):
-                qc, tc = pairs[idx]
-                results[idx] = backtrack_np(p[bi], len(qc), len(tc))
-        return results
+            self.count_device(pairs, cls_idx)
 
 
 def example_inputs(mesh: Mesh, S_q: int = 128, S_t: int = 128, B: int = 2,
                    W: int = 128, seed: int = 0):
-    """Tiny sharded inputs for one step on the given mesh."""
+    """Tiny sharded inputs for one step on the given mesh: B gap-DP
+    problems of class (S_q, S_t) and B q-gram window pairs per shard."""
     pp, dd = mesh.devices.shape
     rng = np.random.default_rng(seed)
-    n_rows = _padded_rows(S_q, S_t)
-    qcodes = rng.integers(0, 4, (pp, dd, B, n_rows)).astype(np.int32)
+    qseq = rng.integers(0, 4, (pp, dd, B, S_q)).astype(np.int8)
     tgt = rng.integers(0, 4, (pp, dd, B, S_t)).astype(np.int8)
+    ql = rng.integers(S_q // 2, S_q + 1, (pp, dd, B)).astype(np.int32)
+    tl = rng.integers(S_t // 2, S_t + 1, (pp, dd, B)).astype(np.int32)
     win_a = rng.integers(0, 4, (pp, dd, B, W)).astype(np.uint8)
     win_b = win_a.copy()
     flip = rng.random(win_b.shape) < 0.1
     win_b[flip] = rng.integers(0, 4, int(flip.sum()))
-    minqg = np.int32(10)
     shard = NamedSharding(mesh, P("pairs", "data"))
-    return (jax.device_put(qcodes, shard), jax.device_put(tgt, shard),
-            jax.device_put(win_a, shard), jax.device_put(win_b, shard),
-            jnp.int32(minqg))
+    return tuple(jax.device_put(a, shard)
+                 for a in (qseq, tgt, ql, tl, win_a, win_b)) + (
+        jnp.int32(10),)

@@ -76,7 +76,7 @@ def test_anchors_match_bruteforce():
                                   "fast_align_3"])
 def test_fast_align_matches_reference(fixtures_dir, name):
     pairs = _load(fixtures_dir / f"{name}.txt")
-    al = WavefrontAligner(use_tpu=False)
+    al = WavefrontAligner(use_device=False)
     for q, r, expect in pairs:
         orig = Hit(SeqRef("A", False, len(q)), 0, len(q),
                    SeqRef("B", False, len(r)), 0, len(r))

@@ -19,7 +19,7 @@ from sedef_tpu.config import DEFAULT
 from sedef_tpu.ops.cigar import Alignment
 from sedef_tpu.ops.wavefront import WavefrontAligner
 
-AL = WavefrontAligner(use_tpu=False)
+AL = WavefrontAligner(use_device=False)
 
 
 def mutate(s: str, rate: float, rng) -> str:

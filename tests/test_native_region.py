@@ -70,7 +70,7 @@ def _rows(hits, orig):
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_native_region_matches_python_path(monkeypatch, seed):
     rng = random.Random(seed)
-    al = WavefrontAligner(use_tpu=False)
+    al = WavefrontAligner(use_device=False)
     cases = []
     for i in range(12):
         n = rng.randint(900, 6000)

@@ -19,7 +19,7 @@ def test_overlapped_equals_sequential(tmp_path, monkeypatch, seed,
                                 repeat_families=2, repeat_copies=6)
     fa = str(tmp_path / "g.fa")
     write_fasta(fa, chroms)
-    al = WavefrontAligner(use_tpu=False)
+    al = WavefrontAligner(use_device=False)
 
     monkeypatch.delenv("SEDEF_NO_OVERLAP", raising=False)
     ov = run_pipeline(fa, str(tmp_path / "ov"), nbuckets=3, aligner=al,
@@ -46,7 +46,7 @@ def test_overlapped_resume_uses_sequential_path(tmp_path, monkeypatch):
         f.write(">chrO\n")
         for i in range(0, len(chrom), 70):
             f.write(chrom[i:i + 70] + "\n")
-    al = WavefrontAligner(use_tpu=False)
+    al = WavefrontAligner(use_device=False)
     monkeypatch.delenv("SEDEF_NO_OVERLAP", raising=False)
     p1 = run_pipeline(str(fa), str(tmp_path / "out"), nbuckets=2,
                       aligner=al)

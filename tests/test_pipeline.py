@@ -45,7 +45,7 @@ def test_pipeline_finds_planted_duplication(tmp_path):
     rng = np.random.default_rng(11)
     fa, pos1, pos2 = _make_genome(tmp_path, rng)
     out = run_pipeline(fa, str(tmp_path / "out"), nbuckets=4,
-                       aligner=WavefrontAligner(use_tpu=False))
+                       aligner=WavefrontAligner(use_device=False))
     final = open(out["final"]).read().splitlines()
     assert final[0].startswith("#chr1\t")
     rows = [l.split("\t") for l in final[1:]]
@@ -84,7 +84,7 @@ def test_pipeline_finds_inverted_duplication(tmp_path):
         for i in range(0, len(chrom), 80):
             f.write(chrom[i:i + 80] + "\n")
     out = run_pipeline(str(fa), str(tmp_path / "out"), nbuckets=2,
-                       aligner=WavefrontAligner(use_tpu=False))
+                       aligner=WavefrontAligner(use_device=False))
     rows = [l.split("\t") for l in
             open(out["final"]).read().splitlines()[1:]]
     assert any(f[9] == "-" for f in rows), "inverted SD not called"
@@ -111,7 +111,7 @@ def test_simulation_accuracy(error):
     (simulations.py + paper/output-rand.txt: >=99% hits at every error
     rate).  5 pairs per rate at 1-6 Kbp keeps CI fast."""
     rng = random.Random(100 + error)
-    al = WavefrontAligner(use_tpu=False)
+    al = WavefrontAligner(use_device=False)
     results = []
     for _ in range(5):
         s1, s2, _ = generate_random_sd(rng, error, min_len=1200,

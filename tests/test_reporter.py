@@ -55,7 +55,7 @@ def test_stats_rows_parallel_matches_serial(fixtures_dir):
     buckets = pl.bucket_stage(seeds, fr, bins, 4, DEFAULT)
     flat = [ln for b in buckets for ln in b]
     aligned = pl.canonical_sort_uniq(pl.align_stage(
-        flat, fr, DEFAULT, WavefrontAligner(use_tpu=False)))
+        flat, fr, DEFAULT, WavefrontAligner(use_device=False)))
     serial = reporter.stats_rows(aligned, fr, DEFAULT)
     par = reporter.stats_rows(aligned, fr, DEFAULT, jobs=4)
     assert serial == par

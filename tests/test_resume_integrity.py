@@ -101,7 +101,7 @@ def test_poisoned_resume_recovers(tmp_path):
     from sedef_tpu.ops.wavefront import WavefrontAligner
 
     fa = _planted_genome(tmp_path)
-    al = WavefrontAligner(use_tpu=False)
+    al = WavefrontAligner(use_device=False)
     ref = run_pipeline(fa, str(tmp_path / "ref"), nbuckets=2, aligner=al)
     ref_final = open(ref["final"]).read()
     assert len(ref_final.splitlines()) >= 2
@@ -126,7 +126,7 @@ def test_self_consistent_empty_artifact_refused(tmp_path):
     from sedef_tpu.ops.wavefront import WavefrontAligner
 
     fa = _planted_genome(tmp_path)
-    al = WavefrontAligner(use_tpu=False)
+    al = WavefrontAligner(use_device=False)
     out = tmp_path / "out"
     run_pipeline(fa, str(out), nbuckets=2, aligner=al)
     open(out / "aligned.bed", "w").close()
@@ -145,7 +145,7 @@ def test_truncated_seeds_rerun_byte_identical(tmp_path):
     from sedef_tpu.ops.wavefront import WavefrontAligner
 
     fa = _planted_genome(tmp_path)
-    al = WavefrontAligner(use_tpu=False)
+    al = WavefrontAligner(use_device=False)
     out = tmp_path / "out"
     paths = run_pipeline(fa, str(out), nbuckets=2, aligner=al)
     seeds_before = open(paths["seeds"]).read()

@@ -63,7 +63,7 @@ def test_stats_rows_fuzz_vs_reference(stats_oracle, tmp_path, seed):
     buckets = pl.bucket_stage(seeds, fr, bins, 4, DEFAULT)
     flat = [line for b in buckets for line in b]
     aligned = pl.canonical_sort_uniq(pl.align_stage(
-        flat, fr, DEFAULT, WavefrontAligner(use_tpu=False)))
+        flat, fr, DEFAULT, WavefrontAligner(use_device=False)))
     assert len(aligned) >= 8, "fuzz genome produced too few alignments"
     bed = tmp_path / "aligned.bed"
     bed.write_text("\n".join(aligned) + "\n")

@@ -1,12 +1,16 @@
-"""Wavefront aligner vs the real ksw2 extz2_sse kernel (fixtures) and the
-Pallas kernel vs the NumPy reference."""
+"""Wavefront aligner vs the real ksw2 extz2_sse kernel (fixtures), and the
+device route (plain JAX fill + traceback on the CPU backend) and its
+wrapper vs the NumPy reference."""
 
 import numpy as np
 import pytest
 
-from sedef_tpu.ops.wavefront import (WavefrontAligner, _padded_rows,
-                                     backtrack_np, wavefront_np,
-                                     wavefront_pallas_batch)
+from sedef_tpu.ops.wavefront import (DEVICE_MAX_CLASS, WILDCARD,
+                                     WavefrontAligner, _pad_to_class,
+                                     backtrack_np, cigar_from_packed_ops,
+                                     class_parts, gap_dp_packed,
+                                     pack_class_batch, wavefront_cigar_scan,
+                                     wavefront_np, wavefront_scan_batch)
 
 
 def _load_pairs(path):
@@ -59,44 +63,58 @@ def test_numpy_matches_ksw2(fixtures_dir, name):
         assert _cigar_str(cig) == cigar_ref
 
 
+def _related(rng, qlen, tlen, rate=0.12):
+    """A target derived from the query: shared prefix, ~rate substitutions."""
+    q = rng.integers(0, 4, qlen).astype(np.int8)
+    t = np.resize(q, tlen).copy()
+    m = rng.random(tlen) < rate
+    t[m] = rng.integers(0, 4, int(m.sum()))
+    return q, t
+
+
+def _device_aligner():
+    """Aligner whose align_batch sends every problem to the device route."""
+    al = WavefrontAligner(use_device=True)
+    al.DEVICE_BATCH_MIN = 1
+    al.DEVICE_BATCH_MIN_CELLS = 0
+    return al
+
+
+# the name predates the port of this route from Pallas; kept so the
+# test's record stays continuous
 def test_pallas_interpret_matches_numpy():
+    """The aligner's device path (plain JAX route on the CPU backend)
+    reproduces the NumPy reference CIGARs and scores."""
     rng = np.random.default_rng(0)
     pairs = []
     for _ in range(4):
         ql, tl = rng.integers(20, 120, 2)
-        q = rng.integers(0, 4, ql).astype(np.int8)
-        t = q[:tl].copy() if tl <= ql else np.concatenate(
-            [q, rng.integers(0, 4, tl - ql)]).astype(np.int8)
-        mut = rng.random(tl) < 0.1
-        t[mut] = rng.integers(0, 4, mut.sum())
-        pairs.append((q, t))
-
-    al = WavefrontAligner(interpret=True)
-    # align one pair at a time: every call shares the same (B=1, 128, 128)
-    # compiled shape, so the (slow, remote) interpret compile happens once
-    # per test session
-    got = [al.align_batch([p])[0] for p in pairs]
+        pairs.append(_related(rng, int(ql), int(tl), 0.1))
+    al = _device_aligner()
+    got = al.align_batch(pairs)
+    assert al.device_problems == len(pairs)
     for (q, t), cig in zip(pairs, got):
         p, sc = wavefront_np(q, t)
-        expect = backtrack_np(p, len(q), len(t))
-        assert cig == expect
+        assert cig == backtrack_np(p, len(q), len(t))
         assert _cigar_score(cig, q, t) == sc
 
 
+# the name predates the port of this route from Pallas; kept so the
+# test's record stays continuous
 def test_pallas_direction_rows_match_numpy():
+    """The plain fill's direction rows equal the NumPy reference's on the
+    valid triangle of a problem parked in one row of a padded batch."""
     rng = np.random.default_rng(3)
     ql, tl = 100, 90
     q = rng.integers(0, 4, ql).astype(np.int8)
     t = rng.integers(0, 4, tl).astype(np.int8)
     S_q = S_t = 128
-    qcodes = np.full((8, _padded_rows(S_q, S_t)), 4, dtype=np.int32)
-    qcodes[3, :ql] = q  # park the real problem in sublane 3
-    tpad = np.full((8, S_t), 4, dtype=np.int8)
+    qcodes = np.full((8, S_q + S_t - 1), WILDCARD, dtype=np.int32)
+    qcodes[3, :ql] = q
+    tpad = np.full((8, S_t), WILDCARD, dtype=np.int8)
     tpad[3, :tl] = t
-    p_dev = np.asarray(wavefront_pallas_batch(
-        qcodes, tpad, S_q, S_t, interpret=True))[0, :, 3, :]
+    p_dev = np.asarray(wavefront_scan_batch(qcodes, tpad, S_q, S_t))[3]
     p_ref, _ = wavefront_np(q, t)
-    # compare only the valid triangle lanes of the real problem
     for r in range(ql + tl - 1):
         st0, en0 = max(0, r - ql + 1), min(r, tl - 1)
         np.testing.assert_array_equal(
@@ -109,7 +127,7 @@ def test_chunked_strings():
     from sedef_tpu.config import Config
     cfg = Config().finalize()
     cfg.align.max_ksw_seq_len = 64
-    al = WavefrontAligner(cfg=cfg, use_tpu=False)
+    al = WavefrontAligner(cfg=cfg, use_device=False)
     rng = np.random.default_rng(1)
     s = "".join(rng.choice(list("ACGT"), 150))
     cig = al.align_strings(s, s)
@@ -119,231 +137,137 @@ def test_chunked_strings():
     assert all(op == "M" for op, ln in cig)
 
 
+# the name predates the port of this route from Pallas; kept so the
+# test's record stays continuous
 def test_device_traceback_interpret():
-    """Fused fill + on-device traceback (interpret mode) produces CIGARs
-    identical to the NumPy reference DP, for both the plain (G=1) and the
-    lane-packed (G>1) layouts, at the default and the wide (SUB>8)
-    sublane packings."""
-    from sedef_tpu.ops.wavefront import (WILDCARD, cigar_from_packed_ops,
-                                         wavefront_cigar_device)
+    """Plain fill + lax traceback: packed ops decode to the NumPy
+    reference CIGARs for symmetric and asymmetric classes, lengths from
+    half the class to the full class."""
     rng = np.random.default_rng(11)
-    for S_q, S_t, G, B, SUB in [(128, 128, 8, 64, 8), (128, 128, 1, 8, 8),
-                                (256, 128, 8, 64, 8), (128, 128, 1, 16, 16),
-                                (128, 128, 2, 64, 32)]:
-        qs = np.full((B, S_q), WILDCARD, np.int8)
-        tp = np.full((B, S_t), WILDCARD, np.int8)
-        ql = np.ones(B, np.int32)
-        tl = np.ones(B, np.int32)
-        probs = []
-        # exercise every lane stride class with distinct lengths
-        for i in range(min(B, 2 * SUB * G)):
-            qlen = int(rng.integers(S_q // 2, S_q + 1))
-            tlen = int(rng.integers(S_t // 2, S_t + 1))
-            q = rng.integers(0, 4, qlen).astype(np.int8)
-            t = np.array(list(q[:min(qlen, tlen)])
-                         + [0] * max(0, tlen - qlen), np.int8)[:tlen]
-            m = rng.random(tlen) < 0.12
-            t[m] = rng.integers(0, 4, int(m.sum()))
-            qs[i, :qlen] = q
-            tp[i, :tlen] = t
-            ql[i] = qlen
-            tl[i] = tlen
-            probs.append((q, t))
-        ops = np.asarray(wavefront_cigar_device(
-            qs, tp, ql, tl, S_q, S_t, interpret=True, G=G, SUB=SUB))
+    for S_q, S_t, B in [(128, 128, 16), (256, 128, 8), (128, 256, 8)]:
+        probs = [_related(rng, int(rng.integers(S_q // 2, S_q + 1)),
+                          int(rng.integers(S_t // 2, S_t + 1)))
+                 for _ in range(B - 2)]
+        ops = np.asarray(wavefront_cigar_scan(
+            *pack_class_batch(probs, range(len(probs)), S_q, S_t, B),
+            S_q, S_t))
+        assert ops.shape == (B, -(-(S_q + S_t - 1) // 4))
         for i, (q, t) in enumerate(probs):
-            got = cigar_from_packed_ops(ops[i], len(q), len(t))
             p_ref, _ = wavefront_np(q, t)
-            assert got == backtrack_np(p_ref, len(q), len(t)), (S_q, S_t,
-                                                                G, SUB, i)
+            assert cigar_from_packed_ops(ops[i], len(q), len(t)) == \
+                backtrack_np(p_ref, len(q), len(t)), (S_q, S_t, i)
 
 
-def test_tiled_matches_numpy_interpret():
-    """Tiled checkpoint/recompute fill+traceback (wavefront_cigar_tiled)
-    vs the NumPy oracle, interpret mode (covers the giant 60 Kbp chunk
-    routing at miniature scale: TILE < n_diag forces multiple tiles)."""
-    import jax.numpy as jnp
-
-    from sedef_tpu.ops.wavefront import (backtrack_np, cigar_from_ops,
-                                         wavefront_cigar_tiled, wavefront_np)
-    rng = np.random.default_rng(5)
-    S, B = 256, 8
-    qs = np.full((B, S), 4, np.int8)
-    ts = np.full((B, S), 4, np.int8)
-    qls = np.zeros(B, np.int32)
-    tls = np.zeros(B, np.int32)
-    pairs = []
-    for b in range(B):
-        ql = int(rng.integers(150, S + 1))
-        tl = int(rng.integers(150, S + 1))
-        L = max(ql, tl)
-        q = rng.integers(0, 4, L).astype(np.int8)
-        t = q.copy()
-        m = rng.random(L) < 0.12
-        t[m] = (t[m] + rng.integers(1, 4, int(m.sum()))) % 4
-        q, t = q[:ql], t[:tl]
-        pairs.append((q, t))
-        qs[b, :ql] = q
-        ts[b, :tl] = t
-        qls[b] = ql
-        tls[b] = tl
-    ops = np.asarray(wavefront_cigar_tiled(
-        jnp.asarray(qs), jnp.asarray(ts), jnp.asarray(qls),
-        jnp.asarray(tls), S, S, TILE=128, interpret=True))
-    for b, (q, t) in enumerate(pairs):
-        got = cigar_from_ops(ops[b], len(q), len(t), skip=255)
+@pytest.mark.parametrize("S_q,S_t", [
+    (128, 128), (256, 256), (512, 512), (1024, 1024), (2048, 2048),
+    (128, 256), (512, 128)])
+def test_device_route_matches_reference(fixtures_dir, S_q, S_t):
+    """The plain device route at each size class (two asymmetric) vs
+    wavefront_np + backtrack_np, and vs the ksw2 golden CIGARs of every
+    fixture pair that fits the class."""
+    rng = np.random.default_rng(S_q * 7 + S_t)
+    probs = [_related(rng, int(rng.integers(S_q // 2 + 1, S_q + 1)),
+                      int(rng.integers(S_t // 2 + 1, S_t + 1)))
+             for _ in range(3)]
+    want = []
+    for q, t in probs:
         p, _ = wavefront_np(q, t)
-        assert got == backtrack_np(p, len(q), len(t)), b
+        want.append(backtrack_np(p, len(q), len(t)))
+    for name in ("ksw2_pairs_1", "ksw2_pairs_2"):
+        for q, t, _, cig in _load_pairs(fixtures_dir / f"{name}.txt"):
+            if len(q) <= S_q and len(t) <= S_t:
+                probs.append((q, t))
+                want.append(cig)
+    ops = np.asarray(gap_dp_packed(
+        *pack_class_batch(probs, range(len(probs)), S_q, S_t,
+                          max(8, len(probs))), S_q, S_t, cuda=False))
+    for i, ((q, t), w) in enumerate(zip(probs, want)):
+        got = cigar_from_packed_ops(ops[i], len(q), len(t))
+        assert (got if isinstance(w, list) else _cigar_str(got)) == w, i
 
 
-def test_pipelined_matches_numpy_interpret():
-    """Streamed (pipelined) fill+traceback vs the NumPy oracle: problems
-    staggered by S_q rows share lanes; CIGARs must match the per-problem
-    DP exactly."""
-    import jax.numpy as jnp
+def test_pad_to_class():
+    assert [_pad_to_class(n) for n in (1, 128, 129, 1024, 2049, 8192)] == \
+        [128, 128, 256, 1024, 4096, 8192]
+    assert _pad_to_class(60000) == 61440 > DEVICE_MAX_CLASS
 
-    from sedef_tpu.ops.wavefront import (backtrack_np,
-                                         cigar_from_packed_ops,
-                                         wavefront_cigar_pipelined,
-                                         wavefront_np)
-    rng = np.random.default_rng(8)
-    S, K, SUB = 128, 2, 8
-    B = SUB * K
-    qs = np.full((B, S), 4, np.int8)
-    ts = np.full((B, S), 4, np.int8)
-    qls = np.zeros(B, np.int32)
-    tls = np.zeros(B, np.int32)
-    pairs = []
-    for b in range(B):
-        ql = int(rng.integers(70, S + 1))
-        tl = int(rng.integers(70, S + 1))
-        L = max(ql, tl)
-        q = rng.integers(0, 4, L).astype(np.int8)
-        t = q.copy()
-        m = rng.random(L) < 0.15
-        t[m] = (t[m] + rng.integers(1, 4, int(m.sum()))) % 4
-        q, t = q[:ql], t[:tl]
-        pairs.append((q, t))
-        qs[b, :ql] = q
-        ts[b, :tl] = t
-        qls[b] = ql
-        tls[b] = tl
-    ops = np.asarray(wavefront_cigar_pipelined(
-        jnp.asarray(qs), jnp.asarray(ts), jnp.asarray(qls),
-        jnp.asarray(tls), S, S, K, SUB=SUB, interpret=True))
-    for b, (q, t) in enumerate(pairs):
-        got = cigar_from_packed_ops(ops[b], len(q), len(t))
+
+def test_pack_class_batch_padding():
+    """Problems land in their rows, wildcard padded; None and trailing
+    rows are 1 x 1 padding problems."""
+    pairs = [(np.array([0, 1, 2], np.int8), np.array([3, 2], np.int8)),
+             (np.array([1], np.int8), np.array([0, 0, 0, 0], np.int8))]
+    qseq, tgt, ql, tl = pack_class_batch(pairs, [1, None, 0], 128, 128, 4)
+    assert qseq.shape == (4, 128) and tgt.shape == (4, 128)
+    assert qseq.dtype == tgt.dtype == np.int8
+    assert list(ql) == [1, 1, 3, 1] and list(tl) == [4, 1, 2, 1]
+    assert list(qseq[2, :4]) == [0, 1, 2, WILDCARD]
+    assert list(tgt[0, :5]) == [0, 0, 0, 0, WILDCARD]
+    assert (qseq[1] == WILDCARD).all() and (tgt[3] == WILDCARD).all()
+
+
+def test_device_route_batch_composition_independent():
+    """A problem's op stream does not depend on its batch neighbours or
+    its row."""
+    rng = np.random.default_rng(17)
+    probs = [_related(rng, int(rng.integers(30, 128)),
+                      int(rng.integers(30, 128))) for _ in range(6)]
+    alone = np.asarray(wavefront_cigar_scan(
+        *pack_class_batch(probs, [0], 128, 128, 8), 128, 128))[0]
+    mixed = np.asarray(wavefront_cigar_scan(
+        *pack_class_batch(probs, [3, 5, 0, 1], 128, 128, 8), 128, 128))[2]
+    assert np.array_equal(alone, mixed)
+
+
+def test_device_route_degenerate_lengths():
+    """Empty sides never reach the device; 1-base sides do, and match
+    the reference."""
+    one = np.array([2], np.int8)
+    seq = np.array([0, 1, 2, 3, 2], np.int8)
+    empty = np.array([], np.int8)
+    pairs = [(empty, seq), (seq, empty), (one, seq), (seq, one), (one, one)]
+    al = _device_aligner()
+    got = al.align_batch(pairs)
+    assert got[0] == [("I", 5)] and got[1] == [("D", 5)]
+    assert al.device_problems == 3
+    for (q, t), cig in zip(pairs[2:], got[2:]):
         p, _ = wavefront_np(q, t)
-        assert got == backtrack_np(p, len(q), len(t)), b
+        assert cig == backtrack_np(p, len(q), len(t))
 
 
-def test_pipelined_asymmetric_matches_numpy_interpret():
-    """S_t > S_q: multiple growth fronts per stream (n_i > 1) exercise
-    the per-front target-switch lanes (lane == srm + i*S_q)."""
-    import jax.numpy as jnp
+def test_60kbp_chunk_routes_native(monkeypatch):
+    """Problems above the largest device class (a 60 Kbp chunk) go to the
+    native scalar DP; the rest of the batch still takes the device."""
+    big = (np.zeros(60000, np.int8), np.zeros(59000, np.int8))
+    small = (np.array([0, 1, 2, 3], np.int8), np.array([0, 1, 3], np.int8))
+    al = _device_aligner()
+    seen = {}
 
-    from sedef_tpu.ops.wavefront import (backtrack_np,
-                                         cigar_from_packed_ops,
-                                         wavefront_cigar_pipelined,
-                                         wavefront_np)
-    rng = np.random.default_rng(21)
-    S_q, S_t, K, SUB = 128, 256, 2, 8
-    B = SUB * K
-    qs = np.full((B, S_q), 4, np.int8)
-    ts = np.full((B, S_t), 4, np.int8)
-    qls = np.zeros(B, np.int32)
-    tls = np.zeros(B, np.int32)
-    pairs = []
-    for b in range(B):
-        ql = int(rng.integers(70, S_q + 1))
-        tl = int(rng.integers(150, S_t + 1))
-        t = rng.integers(0, 4, tl).astype(np.int8)
-        q = t[:ql].copy()
-        m = rng.random(ql) < 0.12
-        q[m] = (q[m] + rng.integers(1, 4, int(m.sum()))) % 4
-        pairs.append((q, t))
-        qs[b, :ql] = q
-        ts[b, :tl] = t
-        qls[b] = ql
-        tls[b] = tl
-    ops = np.asarray(wavefront_cigar_pipelined(
-        jnp.asarray(qs), jnp.asarray(ts), jnp.asarray(qls),
-        jnp.asarray(tls), S_q, S_t, K, SUB=SUB, interpret=True))
-    for b, (q, t) in enumerate(pairs):
-        got = cigar_from_packed_ops(ops[b], len(q), len(t))
-        p, _ = wavefront_np(q, t)
-        assert got == backtrack_np(p, len(q), len(t)), b
+    def host(pairs, idxs, results, native):
+        seen["host"] = list(idxs)
+        for i in idxs:
+            results[i] = [("M", 1)]
+
+    def device(pairs, idxs, results):
+        seen["device"] = list(idxs)
+        for i in idxs:
+            results[i] = [("M", 2)]
+
+    monkeypatch.setattr(al, "_align_host", host)
+    monkeypatch.setattr(al, "_align_device", device)
+    al.align_batch([small, big, small])
+    assert seen == {"host": [1], "device": [0, 2]}
 
 
-def test_tiled_pipelined_matches_numpy_interpret():
-    """Streamed-tiled giant path (K-problem streams through the
-    checkpoint/recompute machinery, multi-walker parity-plane traceback)
-    vs the NumPy oracle AND the plain tiled path, interpret mode."""
-    import jax.numpy as jnp
-
-    from sedef_tpu.ops.wavefront import (backtrack_np, cigar_from_ops,
-                                         wavefront_cigar_tiled,
-                                         wavefront_cigar_tiled_pipelined,
-                                         wavefront_np)
-    rng = np.random.default_rng(13)
-    S, K, SUB = 256, 4, 8
-    n_streams = SUB
-    B = n_streams * K
-    qs = np.full((B, S), 4, np.int8)
-    ts = np.full((B, S), 4, np.int8)
-    qls = np.ones(B, np.int32)
-    tls = np.ones(B, np.int32)
-    pairs = []
-    for b in range(B):
-        ql = int(rng.integers(150, S + 1))
-        tl = int(rng.integers(150, S + 1))
-        L = max(ql, tl)
-        q = rng.integers(0, 4, L).astype(np.int8)
-        t = q.copy()
-        m = rng.random(L) < 0.15
-        t[m] = (t[m] + rng.integers(1, 4, int(m.sum()))) % 4
-        q, t = q[:ql], t[:tl]
-        pairs.append((q, t))
-        qs[b, :ql] = q
-        ts[b, :tl] = t
-        qls[b] = ql
-        tls[b] = tl
-    ops = np.asarray(wavefront_cigar_tiled_pipelined(
-        jnp.asarray(qs), jnp.asarray(ts), jnp.asarray(qls),
-        jnp.asarray(tls), S, S, K, SUB=SUB, TILE=512, interpret=True))
-    ops_plain = np.asarray(wavefront_cigar_tiled(
-        jnp.asarray(qs), jnp.asarray(ts), jnp.asarray(qls),
-        jnp.asarray(tls), S, S, TILE=512, interpret=True))
-    for b, (q, t) in enumerate(pairs):
-        got = cigar_from_ops(ops[b], len(q), len(t), skip=255)
-        p, _ = wavefront_np(q, t)
-        want = backtrack_np(p, len(q), len(t))
-        assert got == want, b
-        assert got == cigar_from_ops(ops_plain[b], len(q), len(t),
-                                     skip=255), b
-
-
-def test_align_giant_streamed_interpret():
-    """_align_giant's streamed branch (len > SUB problems, S_t <= S_q)
-    routes through wavefront_cigar_tiled_pipelined and must reproduce the
-    NumPy oracle CIGARs (miniature class, interpret mode)."""
-    from sedef_tpu.ops.wavefront import (WavefrontAligner, backtrack_np,
-                                         wavefront_np)
-    rng = np.random.default_rng(21)
-    al = WavefrontAligner(interpret=True)
-    S = 256
-    pairs = []
-    for _ in range(20):
-        ql = int(rng.integers(180, S + 1))
-        tl = int(rng.integers(180, S + 1))
-        L = max(ql, tl)
-        q = rng.integers(0, 4, L).astype(np.int8)
-        t = q.copy()
-        m = rng.random(L) < 0.1
-        t[m] = (t[m] + rng.integers(1, 4, int(m.sum()))) % 4
-        pairs.append((q[:ql], t[:tl]))
-    results = [None] * len(pairs)
-    al._align_giant(pairs, list(range(len(pairs))), S, S, results)
-    for b, (q, t) in enumerate(pairs):
-        p, _ = wavefront_np(q, t)
-        assert results[b] == backtrack_np(p, len(q), len(t)), b
+def test_class_parts_caps_plain_route():
+    """The plain route splits a class into calls within PLAIN_BUDGET
+    (a power of two per shard); the CUDA route takes it whole."""
+    from sedef_tpu.ops import wavefront as wf
+    idxs = list(range(100))
+    assert class_parts(idxs, 8192, 8192, cuda=True) == [idxs]
+    per = wf.PLAIN_BUDGET // ((8192 + 8192 - 1) * 8192)
+    parts = class_parts(idxs, 8192, 8192, cuda=False)
+    assert sum(parts, []) == idxs
+    assert len(parts[0]) <= per and len(parts[0]) & (len(parts[0]) - 1) == 0
+    assert len(class_parts(idxs, 8192, 8192, cuda=False, n_shards=4)[0]) \
+        == 4 * len(parts[0])

@@ -94,7 +94,7 @@ def one_rate(args):
     jax.config.update("jax_platforms", "cpu")
     from sedef_tpu.models.simulate import classify_pair, generate_random_sd
     from sedef_tpu.ops.wavefront import WavefrontAligner
-    al = WavefrontAligner(use_tpu=False)
+    al = WavefrontAligner(use_device=False)
     seq = chr_analog_sequence() if chr_analog else None
     rng = random.Random(1000 + error)
     kw = {}

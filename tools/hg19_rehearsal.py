@@ -1,11 +1,11 @@
-"""hg19 dress rehearsal (BASELINE north star: full hg19 < 1 h on v5p-16).
+"""hg19 dress rehearsal at full genome scale.
 
 Generates a 3 Gbp / 24-chromosome genome at hg19-like SD density
 (preprint §4.1: ~2.25 M seed regions -> ~68 K final SD pairs over
 ~219 Mbp), runs the full pipeline end-to-end, byte-diffs a SAMPLED
 super-bin pair of stage 1 against the compiled reference binary on the
-same genome, and records per-stage wall times + the v5p-16 projection
-inputs into docs/HG19_REHEARSAL.json.
+same genome, and records per-stage wall times into
+docs/HG19_REHEARSAL.json.
 
 Usage:
   python tools/hg19_rehearsal.py [--gbp=3.0] [--chroms=24] [--jobs=2]

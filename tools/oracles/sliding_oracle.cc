@@ -1,5 +1,5 @@
 // Test-oracle harness: drives the REFERENCE SlidingMap + get_minimizers with
-// randomized operation streams and dumps state transitions, so the TPU
+// randomized operation streams and dumps state transitions, so the
 // rewrite's Python port can be fixture-tested against exact reference
 // semantics.  Built in /tmp only; never committed.  Boost-dependent
 // relaxed_jaccard_estimate is stubbed below with the closed form (the

@@ -43,7 +43,7 @@ t_bucket = time.time() - t0
 nb = sum(len(b) for b in buckets)
 print(f"stage2a bucket: {t_bucket:7.1f}s  ({nb} regions)")
 
-al = WavefrontAligner(use_tpu=False) if cpu_align else WavefrontAligner()
+al = WavefrontAligner(use_device=False) if cpu_align else WavefrontAligner()
 t0 = time.time()
 flat = [line for b in buckets for line in b]
 aligned = pl.align_stage(flat, fr, DEFAULT, al, jobs=8)
